@@ -1,9 +1,8 @@
 // Native BVH for SDF ground-truth generation.
 //
-// TPU-native replacement for the reference's TriangleBvh + OptiX programs
+// Replacement for the reference's TriangleBvh + OptiX programs
 // (ref: src/triangle_bvh.cu — SAH-lite GPU-traversal BVH; src/optix/*.cu).
-// On TPU, irregular tree traversal doesn't belong on the accelerator;
-// ground-truth signed distances are *training data generation*, so they run
+// Ground-truth signed distances are *training data generation*, so they run
 // here as multithreaded host C++ invoked via ctypes:
 //   - bvh_build: median-split binary BVH over triangles
 //   - bvh_signed_distance: closest-point queries; sign via

@@ -17,13 +17,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-if os.environ.get("NGP_TPU_FORCE_CPU"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "2")
-os.environ.setdefault("NGP_TPU_GRID_IMPL", "blocked")
-
 
 def psnr(a, b):
     mse = float(np.mean((a - b) ** 2))
@@ -63,14 +56,14 @@ def main():
     args = p.parse_args()
 
     import jax
-    from ngp_tpu.common import linear_to_srgb_np
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.data.nerf_loader import load_nerf
-    from ngp_tpu.opt.optimizers import inference_params
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.render.playback import (PlaybackOptions, PlaybackRenderer,
+    from ngp_jax.common import linear_to_srgb_np
+    from ngp_jax.config import load_network_config
+    from ngp_jax.data.nerf_loader import load_nerf
+    from ngp_jax.opt.optimizers import inference_params
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.render.playback import (PlaybackOptions, PlaybackRenderer,
                                          bake_playback_cache)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     print("platform:", jax.devices()[0].platform, flush=True)
     ds = load_nerf(args.scene, scale=0.33, offset=[0.5, 0.5, 0.5])
@@ -80,7 +73,7 @@ def main():
     tr.load_snapshot_state(args.load_snapshot)
     print("snapshot step", tr.training_step, flush=True)
 
-    from ngp_tpu.render.playback import (load_playback_cache,
+    from ngp_jax.render.playback import (load_playback_cache,
                                          save_playback_cache)
     t0 = time.time()
     if args.load_cache and os.path.exists(args.load_cache):
@@ -131,7 +124,7 @@ def main():
     pb_srgb = linear_to_srgb_np(np.clip(img_p[..., :3], 0, 1))
     print("playback vs GT: %.2f dB" % psnr(pb_srgb, gt_srgb), flush=True)
     if args.dump:
-        from ngp_tpu.data.image_io import save_stbi
+        from ngp_jax.data.image_io import save_stbi
         save_stbi(args.dump + "_pb.png", img_p, from_linear=True)
         save_stbi(args.dump + "_gt.png",
                   np.concatenate([gt[yi][:, xi][..., :3],
@@ -151,7 +144,7 @@ def main():
         print("live vs GT: %.2f dB   playback vs live: %.2f dB" % (
             psnr(lv_srgb, gt_srgb), psnr(pb_srgb, lv_srgb)), flush=True)
         if args.dump:
-            from ngp_tpu.data.image_io import save_stbi
+            from ngp_jax.data.image_io import save_stbi
             save_stbi(args.dump + "_live.png", np.asarray(img_l),
                       from_linear=True)
 

@@ -10,8 +10,8 @@ import numpy as np
 ROOT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT_DIR)
 
-from ngp_tpu.common import linear_to_srgb_np, srgb_to_linear_np  # noqa: E402
-from ngp_tpu.data.image_io import (load_binary_image, load_exr,  # noqa
+from ngp_jax.common import linear_to_srgb_np, srgb_to_linear_np  # noqa: E402
+from ngp_jax.data.image_io import (load_binary_image, load_exr,  # noqa
                                    load_stbi, read_image, save_binary_image,
                                    save_exr, save_stbi)
 
@@ -78,7 +78,7 @@ def flip(img: np.ndarray, ref: np.ndarray,
     in scripts/flip/ — tests/test_flip.py). Inputs are sRGB in [0, 1];
     the default pixels_per_degree matches the reference's viewing
     conditions (0.7 m distance, 0.7 m wide 3840-px monitor)."""
-    from ngp_tpu.utils.flip import compute_flip_map
+    from ngp_jax.utils.flip import compute_flip_map
     return float(np.mean(compute_flip_map(
         np.asarray(ref, np.float64)[..., :3],
         np.asarray(img, np.float64)[..., :3], pixels_per_degree)))

@@ -8,7 +8,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ngp_tpu.data.image_io import read_image, save_binary_image
+from ngp_jax.data.image_io import read_image, save_binary_image
 
 
 def main():

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Generate a self-contained synthetic NeRF scene with ANALYTIC ground
 truth — a second holdout-protocol scene for environments without the
-nerf-synthetic dataset (round-5 verdict #10; protocol:
-/root/reference/scripts/run.py:216-303).
+nerf-synthetic dataset (protocol: the reference's scripts/run.py:216-303).
 
 The scene is a handful of constant-density colored spheres in the unit
 cube. Ground-truth images are volume-rendered analytically along the
@@ -37,17 +36,18 @@ SPHERES = [
 ]
 
 
-def field(pos):
-    """Analytic (rgb, sigma) at positions (N, 3) in ngp world space."""
-    sigma = np.zeros(pos.shape[0], np.float32)
-    rgb = np.zeros((pos.shape[0], 3), np.float32)
+def field(pos, xp=np):
+    """Analytic (rgb, sigma) at positions (N, 3) in ngp world space.
+    ``xp`` is the array module: numpy here, jax.numpy on the device."""
+    sigma = xp.zeros(pos.shape[0], xp.float32)
+    rgb = xp.zeros((pos.shape[0], 3), xp.float32)
     for (c, r, col, s) in SPHERES:
-        d = np.linalg.norm(pos - np.asarray(c, np.float32), axis=-1)
+        d = xp.linalg.norm(pos - xp.asarray(c, xp.float32), axis=-1)
         # smooth shell so the surface is learnable, constant core
-        m = np.clip((r - d) / (0.15 * r), 0.0, 1.0)
+        m = xp.clip((r - d) / (0.15 * r), 0.0, 1.0)
         add = s * m
-        w = add / np.maximum(sigma + add, 1e-9)
-        rgb = rgb * (1 - w[:, None]) + np.asarray(col, np.float32) * w[:, None]
+        w = add / xp.maximum(sigma + add, 1e-9)
+        rgb = rgb * (1 - w[:, None]) + xp.asarray(col, xp.float32) * w[:, None]
         sigma = sigma + add
     return rgb, sigma
 
@@ -96,8 +96,8 @@ def main():
     p.add_argument("--focal_mult", type=float, default=1.1)
     args = p.parse_args()
 
-    from ngp_tpu.data.image_io import save_stbi
-    from ngp_tpu.data.nerf_loader import ngp_matrix_to_nerf
+    from ngp_jax.data.image_io import save_stbi
+    from ngp_jax.data.nerf_loader import ngp_matrix_to_nerf
 
     W = H = args.res
     fl = args.focal_mult * W

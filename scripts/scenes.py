@@ -48,7 +48,7 @@ def mode_from_scene(path_or_name: str) -> str:
     mode, _ = get_scene(path_or_name)
     if mode:
         return mode
-    from ngp_tpu.api.testbed import mode_from_scene as infer
+    from ngp_jax.api.testbed import mode_from_scene as infer
     m = infer(path_or_name)
     return m.value if m else ""
 

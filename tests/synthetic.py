@@ -1,7 +1,7 @@
 """Shared synthetic NeRF dataset helpers for tests."""
 import numpy as np
 
-from ngp_tpu.data.nerf_loader import NerfDataset
+from ngp_jax.data.nerf_loader import NerfDataset
 
 
 def make_orbit_dataset(n_images=4, res=32, radius=1.5, images=None,

@@ -7,7 +7,7 @@ import pytest
 
 
 def test_camera_path_spline_and_json(tmp_path):
-    from ngp_tpu.io.camera_path import CameraKeyframe, CameraPath
+    from ngp_jax.io.camera_path import CameraKeyframe, CameraPath
     kfs = []
     for i in range(4):
         m = np.eye(4, dtype=np.float32)[:3]
@@ -27,7 +27,7 @@ def test_camera_path_spline_and_json(tmp_path):
 
 
 def test_camera_path_legacy_dof_key(tmp_path):
-    from ngp_tpu.io.camera_path import CameraPath
+    from ngp_jax.io.camera_path import CameraPath
     doc = {"time": 1.0, "path": [{"R": [0, 0, 0, 1], "T": [0, 0, 0],
                                   "dof": 0.25, "fov": 40}]}
     p = tmp_path / "legacy.json"
@@ -37,7 +37,7 @@ def test_camera_path_legacy_dof_key(tmp_path):
 
 
 def test_quat_roundtrip():
-    from ngp_tpu.io.camera_path import quat_to_rotmat, rotmat_to_quat
+    from ngp_jax.io.camera_path import quat_to_rotmat, rotmat_to_quat
     rng = np.random.default_rng(3)
     for _ in range(10):
         q = rng.normal(size=4)
@@ -48,7 +48,7 @@ def test_quat_roundtrip():
 
 
 def test_marching_tetrahedra_plane():
-    from ngp_tpu.render.mesh_export import marching_tetrahedra
+    from ngp_jax.render.mesh_export import marching_tetrahedra
     res = 16
     lin = np.linspace(0, 1, res, dtype=np.float32)
     g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
@@ -59,7 +59,7 @@ def test_marching_tetrahedra_plane():
 
 
 def test_volume_grid_mapping():
-    from ngp_tpu.data.nanovdb import VolumeGrid
+    from ngp_jax.data.nanovdb import VolumeGrid
     dense = np.zeros((64, 32, 16), np.float32)
     dense[32, 16, 8] = 2.0
     g = VolumeGrid(dense)
@@ -73,7 +73,7 @@ def test_volume_grid_mapping():
 def test_nvdb_header_roundtrip(tmp_path):
     """Write a header per the reference's POD layout and parse it back."""
     import struct
-    from ngp_tpu.data.nanovdb import NANOVDB_MAGIC, read_header
+    from ngp_jax.data.nanovdb import NANOVDB_MAGIC, read_header
     header = struct.pack("<QIHH", NANOVDB_MAGIC, 32 << 21, 1, 0)
     meta = struct.pack("<QQQQII", 1000, 2000, 0, 123, 0, 1)
     meta += np.zeros(6, np.float64).tobytes()
@@ -91,7 +91,7 @@ def test_nvdb_header_roundtrip(tmp_path):
 
 def test_mask3d_shapes():
     import jax.numpy as jnp
-    from ngp_tpu.render.multi_nerf import Mask3D, apply_masks
+    from ngp_jax.render.multi_nerf import Mask3D, apply_masks
     sphere = Mask3D(shape="sphere", radius=0.5, feather=0.1)
     pts = jnp.asarray([[0.0, 0, 0], [0.6, 0, 0], [2.0, 0, 0]])
     a = np.asarray(sphere.sample(pts))
@@ -104,7 +104,7 @@ def test_mask3d_shapes():
 
 
 def test_render_request_dataclasses():
-    from ngp_tpu.render.multi_nerf import (DownsampleInfo, NerfDescriptor,
+    from ngp_jax.render.multi_nerf import (DownsampleInfo, NerfDescriptor,
                                            RenderCameraProperties,
                                            RenderOutputProperties,
                                            RenderRequest)
@@ -117,11 +117,9 @@ def test_render_request_dataclasses():
 
 
 def test_testbed_image_mode(tmp_path):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    from ngp_tpu.api.testbed import Testbed, mode_from_scene
-    from ngp_tpu.common import TestbedMode
-    from ngp_tpu.data.image_io import save_exr
+    from ngp_jax.api.testbed import Testbed, mode_from_scene
+    from ngp_jax.common import TestbedMode
+    from ngp_jax.data.image_io import save_exr
     img = np.random.rand(64, 64, 4).astype(np.float32)
     p = tmp_path / "t.exr"
     save_exr(p, img, dtype=np.float32)
@@ -137,8 +135,8 @@ def test_testbed_image_mode(tmp_path):
 
 def test_tonemap_curves():
     import jax.numpy as jnp
-    from ngp_tpu.common import TonemapCurve
-    from ngp_tpu.render.buffer import tonemap
+    from ngp_jax.common import TonemapCurve
+    from ngp_jax.render.buffer import tonemap
     x = jnp.asarray([0.0, 0.5, 4.0])
     for c in TonemapCurve:
         y = np.asarray(tonemap(x, c))

@@ -23,8 +23,8 @@ def _dataset_with_depth(n_img=6, res=24, radius=1.5, depth_value=None):
 
 
 def _make_trainer(ds, lam):
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -91,7 +91,7 @@ def test_loader_depth_world_scale(tmp_path):
     (ref: nerf_loader.cu:732 passes depth_scale * result.scale)."""
     import json
     from PIL import Image
-    from ngp_tpu.data.nerf_loader import load_nerf
+    from ngp_jax.data.nerf_loader import load_nerf
 
     img = (np.random.rand(8, 8, 3) * 255).astype(np.uint8)
     Image.fromarray(img).save(tmp_path / "f.png")

@@ -8,10 +8,10 @@ from synthetic import make_orbit_dataset
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_dp_step_runs_and_matches_shapes():
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import make_dp_train_step
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import make_dp_train_step
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(res=16)
     cfg = load_network_config("configs/nerf/base.json")
@@ -20,7 +20,7 @@ def test_dp_step_runs_and_matches_shapes():
     tr = NerfTrainer(ds, cfg, tcfg=NerfTrainerConfig(
         n_rays=256, target_batch_size=2048, march_steps=64))
     mesh = make_mesh(n_data=8)
-    from ngp_tpu.dist.nerf_dp import null_error_state
+    from ngp_jax.dist.nerf_dp import null_error_state
     step = make_dp_train_step(tr, mesh, n_rays_per_device=128,
                               samples_per_device=1024)
     err = null_error_state()
@@ -44,10 +44,10 @@ def test_dp_matches_single_device_loss_core():
     """DP(1 device) must equal the single-device step to fp tolerance on
     the same key — they now share _train_step_impl (one loss
     implementation; ref: one step driver, testbed_nerf.cu:3138-3385)."""
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import make_dp_train_step
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import make_dp_train_step
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(res=16)
     cfg = load_network_config("configs/nerf/base.json")

@@ -6,7 +6,7 @@ virtual mesh. This is the evidence behind the "<60 s fox is DP scale-out"
 claim: DP multiplies rays/step by N at constant step time, so matching
 quality-per-step at equal global batch means N chips divide wall clock
 (ref: the reference is single-GPU, README.md:239-241; SURVEY §2.10 is the
-TPU-native scaling plan)."""
+scaling plan)."""
 import jax
 import numpy as np
 import pytest
@@ -28,7 +28,7 @@ def _scene():
 
 
 def _cfg():
-    from ngp_tpu.config import load_network_config
+    from ngp_jax.config import load_network_config
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 6
     cfg["encoding"]["log2_hashmap_size"] = 14
@@ -38,8 +38,8 @@ def _cfg():
 def _psnr_curve(tr, ds, checkpoints):
     """Train to each checkpoint step; eval train-view-0 PSNR by rendering
     through the production renderer with the trainer's own grid."""
-    from ngp_tpu.opt.optimizers import inference_params
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.opt.optimizers import inference_params
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
     r = NerfRenderer.for_trainer(tr, RenderOptions(
         width=RES, height=RES, fov_axis_focal=FOCAL,
         background=(0, 0, 0, 0), linear_out=True, chunk=1 << 10,
@@ -59,9 +59,9 @@ def _psnr_curve(tr, ds, checkpoints):
 @pytest.mark.slow
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_dp8_matches_single_device_convergence():
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import DpNerfTrainer
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import DpNerfTrainer
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     checkpoints = [32, 64, 96, 128]
     ds = _scene()
@@ -101,9 +101,9 @@ def test_dp_trainer_runs_production_chunk_pieces():
     """Fast structural check: the DP trainer exercises the in-chunk grid
     update (post-warmup) and the error-map state refresh — the pieces the
     bare step wrapper skipped (round-4 verdict weak #3)."""
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import DpNerfTrainer
-    from ngp_tpu.train.nerf import NerfTrainerConfig
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import DpNerfTrainer
+    from ngp_jax.train.nerf import NerfTrainerConfig
 
     ds = _scene()
     mesh = make_mesh(n_data=8)

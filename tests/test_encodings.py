@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ngp_tpu.nn.encodings import (Composite, Frequency, Identity, OneBlob,
+from ngp_jax.nn.encodings import (Composite, Frequency, Identity, OneBlob,
                                   SphericalHarmonics, create_encoding)
 
 
@@ -67,7 +67,7 @@ def test_composite_from_config():
 
 
 def test_grid_factory_matches_nerf_base_config():
-    from ngp_tpu.config import autofill_hashgrid_config
+    from ngp_jax.config import autofill_hashgrid_config
     enc_cfg = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2,
                "log2_hashmap_size": 19, "base_resolution": 16}
     filled = autofill_hashgrid_config(enc_cfg, 3, 2048.0, aabb_scale=1)

@@ -33,7 +33,7 @@ def _pair(seed=0, H=48, W=64):
 @pytest.mark.skipif(not HAVE_NV, reason="vendored FLIP unavailable")
 @pytest.mark.parametrize("seed,ppd", [(0, 67.0), (3, 30.0), (7, 67.0)])
 def test_flip_map_matches_vendored(seed, ppd):
-    from ngp_tpu.utils.flip import compute_flip_map
+    from ngp_jax.utils.flip import compute_flip_map
 
     ref, tst = _pair(seed)
     ours = compute_flip_map(ref, tst, ppd)
@@ -45,7 +45,7 @@ def test_flip_map_matches_vendored(seed, ppd):
 
 @pytest.mark.skipif(not HAVE_NV, reason="vendored FLIP unavailable")
 def test_flip_scalar_matches_vendored_mean():
-    from ngp_tpu.utils.flip import flip
+    from ngp_jax.utils.flip import flip
 
     ref, tst = _pair(5)
     ppd = 0.7 * (3840 / 0.7) * (np.pi / 180)
@@ -55,7 +55,7 @@ def test_flip_scalar_matches_vendored_mean():
 
 
 def test_flip_basic_properties():
-    from ngp_tpu.utils.flip import flip
+    from ngp_jax.utils.flip import flip
 
     ref, tst = _pair(1)
     assert flip(ref, ref) < 1e-6          # identical images → ~0

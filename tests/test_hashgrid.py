@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ngp_tpu.kernels.hashgrid import (HashGridMeta, _corner_offsets,
+from ngp_jax.kernels.hashgrid import (HashGridMeta, _corner_offsets,
                                       hashgrid_encode)
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -112,7 +112,7 @@ def test_position_gradient_matches_finite_difference():
 
 
 def test_max_level_masks_fine_levels():
-    from ngp_tpu.kernels.hashgrid import hashgrid_encode_with_max_level
+    from ngp_jax.kernels.hashgrid import hashgrid_encode_with_max_level
     meta = HashGridMeta(n_dims=2, n_levels=4, n_features_per_level=2,
                         log2_hashmap_size=8, base_resolution=4,
                         per_level_scale=2.0)

@@ -11,11 +11,11 @@ from synthetic import make_orbit_dataset
 def test_hier_march_matches_flat_on_sparse_grid():
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.rays.marching import (compact_samples,
+    from ngp_jax.config import load_network_config
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.rays.marching import (compact_samples,
                                        march_and_compact_hier, march_rays)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -54,8 +54,8 @@ def test_hier_march_matches_flat_on_sparse_grid():
 
 @pytest.mark.slow
 def test_trainer_hier_step_finite():
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -73,8 +73,8 @@ def test_adapt_capacity_shrinks_and_trains():
     shape change."""
     import numpy as np
     from synthetic import make_orbit_dataset
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4

@@ -9,8 +9,8 @@ from synthetic import make_orbit_dataset
 
 
 def _trainer():
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -78,8 +78,8 @@ def test_sharpness_grid_deposit():
     import jax.numpy as jnp
     import numpy as np
     from synthetic import make_orbit_dataset
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(res=16)
     cfg = load_network_config("configs/nerf/base.json")
@@ -93,7 +93,7 @@ def test_sharpness_grid_deposit():
     assert "sharpness_maps" in tr.data
     # force occupancy so rays have samples to deposit from (density set
     # high so the in-chunk grid rebuild keeps cells occupied)
-    from ngp_tpu.grid import occupancy as occ
+    from ngp_jax.grid import occupancy as occ
     tr.grid = occ.rebuild_bitfield(
         tr.grid._replace(density=jnp.ones_like(tr.grid.density)),
         tr.max_cascade)

@@ -4,7 +4,7 @@ import pytest
 
 
 def test_exr_roundtrip_float_and_half(tmp_path):
-    from ngp_tpu.data.image_io import load_exr, save_exr
+    from ngp_jax.data.image_io import load_exr, save_exr
     img = np.random.default_rng(0).random((37, 53, 4)).astype(np.float32)
     p32 = tmp_path / "f32.exr"
     save_exr(p32, img, dtype=np.float32)
@@ -15,14 +15,14 @@ def test_exr_roundtrip_float_and_half(tmp_path):
 
 
 def test_exr_reads_reference_albert():
-    from ngp_tpu.data.image_io import load_exr
+    from ngp_jax.data.image_io import load_exr
     img = load_exr("/root/reference/data/image/albert.exr")
     assert img.shape == (1024, 1024, 4)
     assert 0.0 <= img.min() and img.max() <= 1.0 + 1e-5
 
 
 def test_bin_roundtrip(tmp_path):
-    from ngp_tpu.data.image_io import load_binary_image, save_binary_image
+    from ngp_jax.data.image_io import load_binary_image, save_binary_image
     img = np.random.default_rng(1).random((9, 7, 4)).astype(np.float32)
     p = tmp_path / "img.bin"
     save_binary_image(p, img)
@@ -30,7 +30,7 @@ def test_bin_roundtrip(tmp_path):
 
 
 def test_ldr_srgb_premultiply(tmp_path):
-    from ngp_tpu.data.image_io import load_stbi, save_stbi
+    from ngp_jax.data.image_io import load_stbi, save_stbi
     img = np.zeros((8, 8, 4), np.float32)
     img[..., 0] = 0.5  # linear red
     img[..., 3] = 1.0
@@ -43,7 +43,7 @@ def test_ldr_srgb_premultiply(tmp_path):
 
 def test_opencv_undistort_inverts_distortion():
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import iterative_opencv_undistort
+    from ngp_jax.rays.camera import iterative_opencv_undistort
     k1, k2, p1, p2 = 0.06, -0.08, -0.001, 0.0002  # fox-like params
     rng = np.random.default_rng(2)
     x = (rng.random(100) - 0.5) * 0.8
@@ -61,7 +61,7 @@ def test_opencv_undistort_inverts_distortion():
 
 def test_ray_aabb():
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import ray_aabb_intersect
+    from ngp_jax.rays.camera import ray_aabb_intersect
     o = jnp.asarray([[0.5, 0.5, -1.0], [2.0, 2.0, 2.0]])
     d = jnp.asarray([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
     tmin, tmax = ray_aabb_intersect(o, d, 0.0, 1.0)
@@ -71,7 +71,7 @@ def test_ray_aabb():
 
 
 def test_nerf_matrix_roundtrip():
-    from ngp_tpu.data.nerf_loader import nerf_matrix_to_ngp, ngp_matrix_to_nerf
+    from ngp_jax.data.nerf_loader import nerf_matrix_to_ngp, ngp_matrix_to_nerf
     rng = np.random.default_rng(3)
     m = rng.random((3, 4)).astype(np.float32)
     scale, offset = 0.33, np.asarray([0.5, 0.5, 0.5], np.float32)
@@ -84,7 +84,7 @@ def test_pos_to_pixel_inverts_ray_gen():
     """pos_to_pixel must invert the perspective ray model, including the
     parallax head shift (ref: pos_to_pixel, common_device.cuh:320-355)."""
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import pos_to_pixel
+    from ngp_jax.rays.camera import pos_to_pixel
 
     W, H, fx, fy = 64, 48, 70.0, 70.0
     xf = jnp.asarray([[1.0, 0, 0, 0.2], [0, 0.0, -1, 0.1],
@@ -109,7 +109,7 @@ def test_pos_to_pixel_inverts_ray_gen():
 
 def test_motion_vector_3d_static_camera_is_zero():
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import motion_vector_3d
+    from ngp_jax.rays.camera import motion_vector_3d
 
     xf = jnp.asarray([[1.0, 0, 0, 0.0], [0, 1.0, 0, 0.0],
                       [0, 0, 1.0, 0.0]], jnp.float32)
@@ -123,7 +123,7 @@ def test_apply_quilting_stereo_panels():
     """(2,1) stereo: left panel gets +IPD/2, right -IPD/2 (ref:
     apply_quilting, common_device.cuh:550-553)."""
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import apply_quilting
+    from ngp_jax.rays.camera import apply_quilting
 
     x = jnp.asarray([10.0, 74.0])     # panels 0 and 1 for W=128, qx=2
     y = jnp.asarray([5.0, 5.0])
@@ -133,7 +133,7 @@ def test_apply_quilting_stereo_panels():
 
 
 def test_save_obj_unwrapped(tmp_path):
-    from ngp_tpu.render.mesh_export import save_obj_unwrapped
+    from ngp_jax.render.mesh_export import save_obj_unwrapped
 
     verts = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]],
                        np.float32)

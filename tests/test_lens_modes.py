@@ -22,13 +22,13 @@ def _write_scene(tmp_path, extra_keys):
 
 
 def test_loader_latlong_mode(tmp_path):
-    from ngp_tpu.data.nerf_loader import load_nerf
+    from ngp_jax.data.nerf_loader import load_nerf
     ds = load_nerf(str(_write_scene(tmp_path, {"latlong": True})))
     assert ds.lens_mode == "latlong"
 
 
 def test_loader_ftheta_mode(tmp_path):
-    from ngp_tpu.data.nerf_loader import load_nerf
+    from ngp_jax.data.nerf_loader import load_nerf
     ds = load_nerf(str(_write_scene(tmp_path, {
         "ftheta_p0": 0.0, "ftheta_p1": 1.0, "ftheta_p2": 0.0,
         "ftheta_p3": 0.0, "ftheta_p4": 0.0})))
@@ -41,7 +41,7 @@ def test_latlong_ray_directions():
     """uv (0.5, 0.5) → +z; uv (0.25, 0.5) → -x side; poles → ±y
     (ref: latlong_to_dir, common_device.cuh:251-258)."""
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import pixel_to_ray_train
+    from ngp_jax.rays.camera import pixel_to_ray_train
 
     xy = jnp.asarray([[0.5, 0.5], [0.75, 0.5], [0.5, 0.999], [0.5, 0.001]])
     n = xy.shape[0]
@@ -60,7 +60,7 @@ def test_ftheta_identity_polynomial_matches_pinhole_angles():
     """With θ(r) = r·s (linear polynomial), the ray angle from the axis
     must equal the pixel radius × s (ref: f_theta_undistortion)."""
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import f_theta_undistort
+    from ngp_jax.rays.camera import f_theta_undistort
 
     # params: p0..p4 = (0, 0.01, 0, 0, 0), native res 100×100
     params = jnp.asarray([[0.0, 0.01, 0.0, 0.0, 0.0, 100.0, 100.0]] * 3)

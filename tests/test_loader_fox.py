@@ -8,7 +8,7 @@ pytestmark = pytest.mark.smoke
 
 @pytest.fixture(scope="module")
 def fox():
-    from ngp_tpu.data.nerf_loader import load_nerf
+    from ngp_jax.data.nerf_loader import load_nerf
     return load_nerf("/root/reference/data/nerf/fox", max_images=4,
                      downscale=8)
 
@@ -25,7 +25,7 @@ def test_intrinsics_downscaled(fox):
 
 
 def test_world_scale_override():
-    from ngp_tpu.data.nerf_loader import load_nerf
+    from ngp_jax.data.nerf_loader import load_nerf
     a = load_nerf("/root/reference/data/nerf/fox", max_images=2, downscale=8)
     b = load_nerf("/root/reference/data/nerf/fox", max_images=2, downscale=8,
                   scale=0.33, offset=[0.5, 0.5, 0.5])
@@ -55,8 +55,8 @@ def test_lazy_images_match_eager_conversion(fox):
     """LDR captures defer the float conversion (fox on a 1-core host:
     234 s eager → ~6 s); the lazy view must reproduce load_stbi bit for
     bit, and editing an image (pyngp set_image) must still work."""
-    from ngp_tpu.data.image_io import load_stbi
-    from ngp_tpu.data.nerf_loader import LazyImageArray
+    from ngp_jax.data.image_io import load_stbi
+    from ngp_jax.data.nerf_loader import LazyImageArray
     assert isinstance(fox.images, LazyImageArray)
     assert fox.images.shape == fox.images_u8.shape
     eager = load_stbi(fox.paths[1])[::8, ::8]   # fixture downscale=8

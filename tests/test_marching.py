@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ngp_tpu.common import (MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE,
+from ngp_jax.common import (MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE,
                             NERF_GRIDSIZE)
-from ngp_tpu.grid.occupancy import (cell_idx_at, mip_from_dt, mip_from_pos,
+from ngp_jax.grid.occupancy import (cell_idx_at, mip_from_dt, mip_from_pos,
                                     morton3d, morton3d_invert)
-from ngp_tpu.rays.marching import (compact_samples, composite_samples,
+from ngp_jax.rays.marching import (compact_samples, composite_samples,
                                    step_lattice)
 
 
@@ -111,7 +111,7 @@ def test_composite_matches_reference_math():
 
 @pytest.mark.smoke
 def test_occupancy_bitfield_lookup():
-    from ngp_tpu.grid.occupancy import (OccupancyGrid, init_grid,
+    from ngp_jax.grid.occupancy import (OccupancyGrid, init_grid,
                                         rebuild_bitfield, occupied_at,
                                         GRID_VOLUME)
     grid = init_grid(0)
@@ -133,7 +133,7 @@ def test_exclusive_depth_matches_f64_and_survives_huge_sigma():
     at ~1e7 accumulated depth and diverged fox training at ~3.5k steps)."""
     import numpy as np
     import jax.numpy as jnp
-    from ngp_tpu.rays.marching import exclusive_depth
+    from ngp_jax.rays.marching import exclusive_depth
 
     rng = np.random.default_rng(0)
     R, K = 64, 128
@@ -165,11 +165,11 @@ def test_exclusive_depth_matches_f64_and_survives_huge_sigma():
 
 def test_compaction_search_branch_matches_scatter_branch():
     """compact_samples picks a stream-sized binary search when
-    S ≪ lattice (the render-body regime — XLA TPU scatters are sized by
-    the SOURCE); both branches must agree on every valid slot."""
+    S ≪ lattice (the render-body regime — a scatter is sized by the
+    SOURCE); both branches must agree on every valid slot."""
     import jax.numpy as jnp
     import numpy as np
-    from ngp_tpu.rays.marching import compact_samples
+    from ngp_jax.rays.marching import compact_samples
 
     rng = np.random.default_rng(7)
     R, K = 32, 256

@@ -18,7 +18,7 @@ def _edge_counts(faces):
 
 
 def test_mc_sphere_watertight_and_accurate():
-    from ngp_tpu.render.mesh_export import marching_cubes
+    from ngp_jax.render.mesh_export import marching_cubes
 
     field = _sphere_field()
     verts, faces = marching_cubes(field, 0.0)
@@ -36,7 +36,7 @@ def test_mc_sphere_watertight_and_accurate():
 def test_mc_consistent_orientation():
     """All face normals point the same way relative to the inside region
     (outward for inside = field < threshold)."""
-    from ngp_tpu.render.mesh_export import marching_cubes
+    from ngp_jax.render.mesh_export import marching_cubes
 
     field = _sphere_field()
     verts, faces = marching_cubes(field, 0.0)
@@ -57,7 +57,7 @@ def test_mc_watertight_on_random_field():
     """Ambiguous-face cases must still close up across cell boundaries
     (the fixed per-face pairing rule is applied identically from both
     sides of every shared face)."""
-    from ngp_tpu.render.mesh_export import marching_cubes
+    from ngp_jax.render.mesh_export import marching_cubes
 
     rng = np.random.RandomState(11)
     field = rng.randn(14, 14, 14).astype(np.float32)
@@ -75,7 +75,7 @@ def test_mc_watertight_on_random_field():
 
 
 def test_mc_triangle_economy_vs_tets():
-    from ngp_tpu.render.mesh_export import (marching_cubes,
+    from ngp_jax.render.mesh_export import (marching_cubes,
                                             marching_tetrahedra)
 
     field = _sphere_field(24)
@@ -85,7 +85,7 @@ def test_mc_triangle_economy_vs_tets():
 
 
 def test_extract_mesh_defaults_to_mc():
-    from ngp_tpu.render.mesh_export import extract_mesh_from_density
+    from ngp_jax.render.mesh_export import extract_mesh_from_density
 
     def density_fn(pos):
         d = np.linalg.norm(np.asarray(pos) - 0.5, axis=-1)

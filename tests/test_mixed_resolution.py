@@ -11,8 +11,8 @@ from synthetic import make_orbit_dataset
 def test_mixed_resolution_training_and_lookup():
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=4, res=32)
     # shrink images 1 and 3 to 16×16 (content in the top-left corner of

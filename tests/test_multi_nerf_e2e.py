@@ -11,13 +11,13 @@ from test_nerf_e2e import render_gt_sphere
 @pytest.mark.slow
 def test_render_request_roundtrip(tmp_path):
     import jax
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.render.multi_nerf import (Mask3D, MultiNerfRenderer,
+    from ngp_jax.config import load_network_config
+    from ngp_jax.render.multi_nerf import (Mask3D, MultiNerfRenderer,
                                            NerfDescriptor,
                                            RenderCameraProperties,
                                            RenderOutputProperties,
                                            RenderRequest, DownsampleInfo)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     res, focal = 32, 32.0
     center = np.array([0.5, 0.5, 0.5])
@@ -110,14 +110,14 @@ def test_render_request_spp_dof_tonemap(tmp_path):
     (ref: render_request.cuh:17-125 + per-ray thin-lens DoF,
     common_device.cuh:260-317 — round-1 carried these as dead fields)."""
     import jax
-    from ngp_tpu.common import TonemapCurve
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.render.multi_nerf import (MultiNerfRenderer,
+    from ngp_jax.common import TonemapCurve
+    from ngp_jax.config import load_network_config
+    from ngp_jax.render.multi_nerf import (MultiNerfRenderer,
                                            NerfDescriptor,
                                            RenderCameraProperties,
                                            RenderOutputProperties,
                                            RenderRequest)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=2, res=16)
     cfg = load_network_config("configs/nerf/base.json")

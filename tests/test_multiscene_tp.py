@@ -12,10 +12,10 @@ def test_multiscene_in_group_dp():
     """2 scenes × 4-device groups train concurrently, each group running
     the shard_map DP step (not a single-device trainer)."""
     import jax
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.dist.multi_scene import (MultiSceneOrchestrator, SceneJob,
+    from ngp_jax.config import load_network_config
+    from ngp_jax.dist.multi_scene import (MultiSceneOrchestrator, SceneJob,
                                           _DpGroupRunner)
-    from ngp_tpu.train.nerf import NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainerConfig
 
     assert len(jax.devices()) >= 8
     cfg = load_network_config("configs/nerf/base.json")
@@ -50,8 +50,8 @@ def test_tp_blocked_encode_matches_reference():
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from ngp_tpu.dist.mesh import make_mesh, make_tp_blocked_encode
-    from ngp_tpu.kernels.blocked_grid import (BlockedGridMeta,
+    from ngp_jax.dist.mesh import make_mesh, make_tp_blocked_encode
+    from ngp_jax.kernels.blocked_grid import (BlockedGridMeta,
                                               encode_reference)
 
     assert len(jax.devices()) >= 8

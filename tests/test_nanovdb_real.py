@@ -24,7 +24,7 @@ needs_toolchain = pytest.mark.skipif(
 
 
 def _plume(res=48):
-    from ngp_tpu.data.nanovdb import make_procedural_plume
+    from ngp_jax.data.nanovdb import make_procedural_plume
     return make_procedural_plume(res=res, seed=3)
 
 
@@ -50,7 +50,7 @@ def nvdb_check(tmp_path_factory):
 @needs_toolchain
 @pytest.mark.parametrize("case", ["plume", "sparse", "offset"])
 def test_reference_accessor_reads_our_file(tmp_path, nvdb_check, case):
-    from ngp_tpu.data.nanovdb_write import write_nvdb
+    from ngp_jax.data.nanovdb_write import write_nvdb
     if case == "plume":
         dense, origin = _plume(), (0, 0, 0)
     elif case == "sparse":
@@ -78,8 +78,8 @@ def test_reference_accessor_reads_our_file(tmp_path, nvdb_check, case):
 def test_python_reader_matches_accessor(tmp_path, nvdb_check):
     """Our reader's densified view == NanoVDB's accessor view of the same
     real file."""
-    from ngp_tpu.data.nanovdb import load_volume_grid
-    from ngp_tpu.data.nanovdb_write import write_nvdb
+    from ngp_jax.data.nanovdb import load_volume_grid
+    from ngp_jax.data.nanovdb_write import write_nvdb
     dense = _plume(40)
     path = tmp_path / "x.nvdb"
     write_nvdb(dense, path)
@@ -99,8 +99,8 @@ def test_python_reader_matches_accessor(tmp_path, nvdb_check):
 def test_roundtrip_no_toolchain(tmp_path):
     """Pure-python round trip (kept fast + dependency-free for the smoke
     path): writer → reader over an awkward bbox."""
-    from ngp_tpu.data.nanovdb import load_volume_grid, read_header
-    from ngp_tpu.data.nanovdb_write import write_nvdb
+    from ngp_jax.data.nanovdb import load_volume_grid, read_header
+    from ngp_jax.data.nanovdb_write import write_nvdb
     dense = _sparse((23, 9, 31), 0.15, seed=11)
     path = tmp_path / "y.nvdb"
     write_nvdb(dense, path, voxel_size=2.0, name="rt")

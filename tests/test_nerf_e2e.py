@@ -31,8 +31,8 @@ def render_gt_sphere(res, xform, focal, center, radius, color, bg):
 @pytest.mark.slow
 def test_nerf_learns_and_renders_sphere():
     import jax
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     res = 48
     focal = 48.0
@@ -64,8 +64,8 @@ def test_nerf_learns_and_renders_sphere():
     assert inside[0] > 10 * max(outside[0], 1e-3), (inside, outside)
 
     # re-render a training view and compare against the analytic image
-    from ngp_tpu.opt.optimizers import inference_params
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.opt.optimizers import inference_params
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
     opts = RenderOptions(width=res, height=res, fov_axis_focal=focal,
                          background=(0, 0, 0, 0), linear_out=True,
                          chunk=1 << 11, march_steps=1024,

@@ -1,4 +1,4 @@
-"""NGP_TPU_CHECK_NUMERICS=1 turns a training divergence into a one-line
+"""NGP_CHECK_NUMERICS=1 turns a training divergence into a one-line
 FloatingPointError at the next stats fetch (SURVEY §5 numerics guards —
 the functional substitute for the sanitizers the reference lacks; the
 round-3 f32-cumsum overflow scenario motivated this)."""
@@ -9,7 +9,7 @@ from synthetic import make_orbit_dataset
 
 
 def _small_cfg():
-    from ngp_tpu.config import load_network_config
+    from ngp_jax.config import load_network_config
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
     cfg["encoding"]["log2_hashmap_size"] = 12
@@ -17,7 +17,7 @@ def _small_cfg():
 
 
 def _trainer():
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
     ds = make_orbit_dataset(res=16, aabb_scale=1)
     return NerfTrainer(ds, _small_cfg(), seed=3, tcfg=NerfTrainerConfig(
         n_rays=64, adapt_rays=False, target_batch_size=2048,
@@ -27,7 +27,7 @@ def _trainer():
 @pytest.mark.smoke
 def test_nan_params_raise_with_flag(monkeypatch):
     import jax.numpy as jnp
-    monkeypatch.setenv("NGP_TPU_CHECK_NUMERICS", "1")
+    monkeypatch.setenv("NGP_CHECK_NUMERICS", "1")
     tr = _trainer()
     tr.train(2)
     # poison the position encoding the way a divergence would (NaN
@@ -42,7 +42,7 @@ def test_nan_params_raise_with_flag(monkeypatch):
 
 
 def test_no_flag_no_raise(monkeypatch):
-    monkeypatch.delenv("NGP_TPU_CHECK_NUMERICS", raising=False)
+    monkeypatch.delenv("NGP_CHECK_NUMERICS", raising=False)
     tr = _trainer()
     loss = tr.train(2)
     assert np.isfinite(loss)

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import ngp_tpu.grid.occupancy as occ
-from ngp_tpu.common import GRID_VOLUME, MIN_CONE_STEPSIZE
+import ngp_jax.grid.occupancy as occ
+from ngp_jax.common import GRID_VOLUME, MIN_CONE_STEPSIZE
 
 
 def _uniform_density(c):

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ngp_tpu.opt.optimizers import (AdamConfig, apply_update,
+from ngp_jax.opt.optimizers import (AdamConfig, apply_update,
                                     inference_params, init_state, lr_at_step)
 
 

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ngp_tpu.render.playback import (PlaybackCache, PlaybackOptions,
+from ngp_jax.render.playback import (PlaybackCache, PlaybackOptions,
                                      PlaybackRenderer, _PERMS,
                                      _cascade_lattice)
 
@@ -218,12 +218,12 @@ def test_bake_and_roundtrip(tmp_path):
     """bake_playback_cache runs on a real trainer, respects occupancy
     masking, and caches round-trip through save/load."""
     from synthetic import make_orbit_dataset
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.render.playback import (bake_playback_cache,
+    from ngp_jax.config import load_network_config
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.render.playback import (bake_playback_cache,
                                          load_playback_cache,
                                          save_playback_cache)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=2, res=16, aabb_scale=2)
     cfg = load_network_config("configs/nerf/base.json")
@@ -285,8 +285,8 @@ def test_bake_geometry_matches_brute_force():
     import types
 
     import jax.numpy as jnp
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.render.playback import bake_playback_cache
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.render.playback import bake_playback_cache
 
     tr = types.SimpleNamespace()
     tr.model = _AnalyticModel()
@@ -322,8 +322,8 @@ def test_bake_geometry_multicascade():
     cascades, aabb_scale=2 world mapping like fox-class scenes)."""
     import types
 
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.render.playback import bake_playback_cache
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.render.playback import bake_playback_cache
 
     class _M:
         def rgb_sigma(self, params, pos01, dir01, extra=None):
@@ -374,8 +374,8 @@ def test_bake_geometry_multicascade():
 def test_testbed_playback_roundtrip(tmp_path):
     """Testbed.bake_playback + render_playback runs end to end on a tiny
     in-memory scene (the Blender flow) and round-trips save/load."""
-    from ngp_tpu.api.testbed import Testbed
-    from ngp_tpu.common import TestbedMode
+    from ngp_jax.api.testbed import Testbed
+    from ngp_jax.common import TestbedMode
 
     tb = Testbed(TestbedMode.NERF)
     tb.reload_network_from_json({
@@ -427,7 +427,7 @@ class _DirLinearModel:
 
 def _tiny_trainer(model):
     import types
-    from ngp_tpu.grid import occupancy as occ
+    from ngp_jax.grid import occupancy as occ
     tr = types.SimpleNamespace()
     tr.model = model
     tr.max_cascade = 0
@@ -447,7 +447,7 @@ def _tiny_trainer(model):
 def test_sh_bake_matches_diffuse_on_dir_independent_model():
     """SH of a direction-independent field reproduces the diffuse bake's
     render exactly (constant -> c0 Y00 only)."""
-    from ngp_tpu.render.playback import bake_playback_cache
+    from ngp_jax.render.playback import bake_playback_cache
 
     tr = _tiny_trainer(_AnalyticModel())
     c_diff = bake_playback_cache(tr, D=32, params={},
@@ -469,7 +469,7 @@ def test_sh_bake_captures_linear_view_dependence():
     """A dir-linear rgb field is EXACT under degree-1 SH: rendering the
     opaque box from opposite sides must show rgb(base +- 0.3*fwd), which
     a diffuse bake cannot (it returns the same color both ways)."""
-    from ngp_tpu.render.playback import bake_playback_cache
+    from ngp_jax.render.playback import bake_playback_cache
 
     tr = _tiny_trainer(_DirLinearModel())
     cache = bake_playback_cache(tr, D=40, params={}, sh_degree=1)
@@ -494,7 +494,7 @@ def test_linear_out_applies_srgb_to_linear():
     """linear_out converts the model-space (sRGB) composite exactly like
     the live renderer (nerf_render.py:1176) — regression guard for the
     round-5 double-sRGB bug (+9 dB on fox once fixed)."""
-    from ngp_tpu.common import srgb_to_linear_np
+    from ngp_jax.common import srgb_to_linear_np
 
     cache = _smooth_cache(n_casc=1, D=24)
     xf = _lookat_xform((0.5, 0.5, -1.2))

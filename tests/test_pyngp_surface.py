@@ -5,7 +5,7 @@ import pytest
 
 
 def test_module_level_names():
-    import ngp_tpu.api.pyngp_shim as ngp
+    import ngp_jax.api.pyngp_shim as ngp
     for name in ["TestbedMode", "RenderMode", "RandomMode", "LossType",
                  "ColorSpace", "TonemapCurve", "LensMode", "CameraModel",
                  "MaskMode", "MaskShape", "GroundTruthRenderMode",
@@ -18,9 +18,7 @@ def test_module_level_names():
 
 
 def test_testbed_methods_and_properties():
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import ngp_tpu.api.pyngp_shim as ngp
+    import ngp_jax.api.pyngp_shim as ngp
     tb = ngp.Testbed(ngp.TestbedMode.Nerf)
     methods = [
         "load_training_data", "reload_network_from_file",
@@ -70,7 +68,7 @@ def test_testbed_methods_and_properties():
 
 
 def test_bounding_box_surface():
-    import ngp_tpu.api.pyngp_shim as ngp
+    import ngp_jax.api.pyngp_shim as ngp
     bb = ngp.BoundingBox((0, 0, 0), (2, 2, 2))
     for m in ["center", "contains", "diag", "distance", "distance_sq",
               "enlarge", "get_vertices", "inflate", "intersection",
@@ -100,7 +98,7 @@ def test_full_reference_surface_coverage():
         return re.search(re.escape(start) + r"(.*?)" + re.escape(end),
                          src, re.S).group(1)
 
-    import ngp_tpu.api.pyngp_shim as ngp
+    import ngp_jax.api.pyngp_shim as ngp
     tb = ngp.Testbed(ngp.TestbedMode.Nerf)
     targets = [
         (tb, section("py::class_<Testbed>", "py::class_<Testbed::Nerf>")),
@@ -130,9 +128,7 @@ def test_blender_plugin_shaped_workflow(tmp_path):
     """Exercise the property/method surface the way a plugin script does:
     build a dataset in-process, train a few steps, drive camera/fov/crop
     helpers, round-trip the params vector (round-3 verdict weak #9)."""
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import ngp_tpu.api.pyngp_shim as ngp
+    import ngp_jax.api.pyngp_shim as ngp
 
     tb = ngp.Testbed(ngp.TestbedMode.Nerf)
     tb.reload_network_from_json({

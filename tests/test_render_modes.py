@@ -22,10 +22,10 @@ from synthetic import make_orbit_dataset
 ])
 def test_render_mode_finite(mode_name, extra):
     import jax.numpy as jnp
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.common import RenderMode
+    from ngp_jax.config import load_network_config
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4

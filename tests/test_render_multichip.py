@@ -1,6 +1,5 @@
 """Frame-sharded rendering over the virtual mesh must reproduce the
-single-chip image (chunk keys match), scaling the render over ICI —
-the pod-scale answer to the encode-bound single-chip fps ceiling."""
+single-device image (chunk keys match)."""
 import jax
 import numpy as np
 import pytest
@@ -11,10 +10,10 @@ from synthetic import make_orbit_dataset
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_render_multichip_matches_single():
     import jax.numpy as jnp
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4

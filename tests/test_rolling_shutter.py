@@ -17,7 +17,7 @@ def _rot(axis, ang):
 
 def test_xform_slerp_endpoints_and_orthonormality():
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import xform_slerp
+    from ngp_jax.rays.camera import xform_slerp
 
     a = np.concatenate([_rot([0, 0, 1], 0.0), [[0], [0], [0]]],
                        axis=1).astype(np.float32)
@@ -39,8 +39,8 @@ def test_xform_slerp_endpoints_and_orthonormality():
 def test_training_with_rolling_shutter_dataset():
     """xforms_end ≠ xforms must activate the per-ray slerp path and still
     train finitely (the round-1 build silently ignored xforms_end)."""
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=4, res=16)
     # end transforms: slightly rotated cameras
@@ -67,9 +67,9 @@ def test_render_with_rolling_shutter_blurs():
     """A renderer call with distinct start/end transforms must differ from
     a static render (per-ray interpolation active) and stay finite."""
     import jax
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=4, res=16)
     cfg = load_network_config("configs/nerf/base.json")
@@ -98,7 +98,7 @@ def test_quat_from_mat_all_rotation_classes():
     naive w-only form silently returned identity for a 180° rotation —
     every fox camera render was corrupted)."""
     import jax.numpy as jnp
-    from ngp_tpu.rays.camera import quat_from_mat, quat_to_mat
+    from ngp_jax.rays.camera import quat_from_mat, quat_to_mat
 
     mats = [np.eye(3)]
     for axis in ([0, 0, 1], [0, 1, 0], [1, 0, 0], [1, 1, 1]):
@@ -116,10 +116,10 @@ def test_renderer_rays_match_training_rays():
     the same camera/intrinsics (the eval PSNR is meaningless otherwise)."""
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.rays.camera import pixel_to_ray_train
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.rays.camera import pixel_to_ray_train
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(n_images=2, res=16)
     # make the rotation interesting (orbit cams include trace<0 cases)

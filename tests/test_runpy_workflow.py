@@ -14,8 +14,8 @@ from test_nerf_e2e import render_gt_sphere
 
 
 def make_dataset_dir(tmp_path, n_train=10, n_test=2, res=40, focal=40.0):
-    from ngp_tpu.data.image_io import save_stbi
-    from ngp_tpu.data.nerf_loader import ngp_matrix_to_nerf
+    from ngp_jax.data.image_io import save_stbi
+    from ngp_jax.data.nerf_loader import ngp_matrix_to_nerf
     center = np.array([0.5, 0.5, 0.5])
     color = np.array([0.75, 0.35, 0.2], np.float32)
     n = n_train + n_test
@@ -56,10 +56,10 @@ def test_runpy_full_workflow(tmp_path):
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
              "HOME": "/root",
              "PYTHONPATH": str(root),
-             "NGP_TPU_TESTBED_BATCH": "8192",
+             "NGP_TESTBED_BATCH": "8192",
              # pin the ray count: each adaptation step would recompile
              # the scan chunk (the round-2 judge run hit the 1500 s cap)
-             "NGP_TPU_FIXED_RAYS": "512"},
+             "NGP_FIXED_RAYS": "512"},
         cwd=root)
     print(out.stdout[-3000:])
     print(out.stderr[-2000:])

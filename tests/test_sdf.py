@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from ngp_tpu.data.mesh import TriangleBvh, load_mesh, load_obj
+from ngp_jax.data.mesh import TriangleBvh, load_mesh, load_obj
 
 
 def make_cube_mesh():
@@ -57,8 +57,8 @@ def test_mesh_normalization():
 @pytest.mark.smoke
 def test_sdf_trainer_learns_cube(tmp_path):
     import jax
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.sdf import SdfTrainer
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.sdf import SdfTrainer
     v, f = make_cube_mesh()
     # write a tiny obj
     p = tmp_path / "cube.obj"
@@ -81,7 +81,7 @@ def test_pathescape_sign_matches_watertight_on_cube():
     """PathEscape (mode 2, ref: src/optix/pathescape.cu): random-walk
     escape voting must agree with the pseudonormal test on a closed cube."""
     import numpy as np
-    from ngp_tpu.data.mesh import TriangleBvh
+    from ngp_jax.data.mesh import TriangleBvh
 
     v, f = make_cube_mesh()
     bvh = TriangleBvh(v, f)
@@ -101,7 +101,7 @@ def test_octree_uniform_sampling(tmp_path):
     testbed_sdf.cu:1118-1143): the 1/8 uniform samples must land inside
     dilated surface leaves, not the whole AABB."""
     import numpy as np
-    from ngp_tpu.train.sdf import SdfTrainer
+    from ngp_jax.train.sdf import SdfTrainer
 
     v, f = make_cube_mesh()
     mesh = tmp_path / "cube.obj"
@@ -138,8 +138,8 @@ def test_takikawa_trains_and_iou_uses_octree_semantics(tmp_path):
     when using the octree, that the model is always correct outside').
     Round-4 CPU A/B on armadillo: base 0.9896 vs takikawa 0.9987 @400."""
     import numpy as np
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.sdf import SdfTrainer
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.sdf import SdfTrainer
     v, f = make_cube_mesh()
     p = tmp_path / "cube.obj"
     with open(p, "w") as fh:

@@ -19,14 +19,14 @@ def test_short_run_snapshot_has_live_bitfield(tmp_path):
     """Snapshot after <256 steps (pure warmup) must carry a non-empty
     density grid whose bitfield covers the trained object when reloaded
     through the multi-NeRF engine (round-3 verdict item #1)."""
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.render.multi_nerf import (MultiNerfRenderer,
+    from ngp_jax.config import load_network_config
+    from ngp_jax.render.multi_nerf import (MultiNerfRenderer,
                                            NerfDescriptor,
                                            NeuralRadianceField,
                                            RenderCameraProperties,
                                            RenderOutputProperties,
                                            RenderRequest)
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     res, focal = 16, 16.0
     center = np.array([0.5, 0.5, 0.5])
@@ -70,9 +70,9 @@ def test_smoke_image_and_volume_trainers():
     """One real train segment through the image and volume engines
     (round-4 verdict weak #6: the gate must touch every primitive's
     train step, not just NeRF)."""
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.image import ImageTrainer
-    from ngp_tpu.train.volume import default_plume_trainer
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.image import ImageTrainer
+    from ngp_jax.train.volume import default_plume_trainer
 
     rng = np.random.default_rng(7)
     img = rng.random((32, 32, 4), np.float32)
@@ -97,10 +97,10 @@ def test_smoke_nerf_renderer_chunk(tmp_path):
     """NerfRenderer chunked path on a freshly-trained tiny scene (the
     gate previously never touched the single-scene renderer; a
     compaction/bitfield regression there shipped red in round 3)."""
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.opt.optimizers import inference_params
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.opt.optimizers import inference_params
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     res, focal = 16, 16.0
     center = np.array([0.5, 0.5, 0.5])
@@ -134,7 +134,7 @@ def test_smoke_bitfield_pack_exactness():
     render assertions survive a bit-axis swap because a byte's 2x2x2
     block is spatially coarse; this test does not)."""
     import jax.numpy as jnp
-    from ngp_tpu.grid import occupancy as occ
+    from ngp_jax.grid import occupancy as occ
 
     g = occ.init_grid(max_cascade=0)
     # a scattered set of single occupied cells (odd/even parities in each

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from ngp_tpu.io.snapshot import load_snapshot, save_snapshot
+from ngp_jax.io.snapshot import PARAMS_KEY, load_snapshot, save_snapshot
 
 
 @pytest.mark.smoke
@@ -21,7 +21,7 @@ def test_roundtrip(tmp_path):
     assert doc["loss"]["otype"] == "Huber"
     assert snap["training_step"] == 42
     assert snap["nerf"]["aabb_scale"] == 2
-    got = snap["ngp_tpu_params"]
+    got = snap[PARAMS_KEY]
     np.testing.assert_array_equal(got["net"][0], params["net"][0])
     np.testing.assert_array_equal(got["encoding"], params["encoding"])
     # fp16 grid compression round-trip
@@ -30,7 +30,7 @@ def test_roundtrip(tmp_path):
 
 
 def test_msgpack_config_loading(tmp_path):
-    from ngp_tpu.config import load_network_config
+    from ngp_jax.config import load_network_config
     params = {"x": np.zeros(3, np.float32)}
     cfg = {"encoding": {"otype": "HashGrid", "n_levels": 8}}
     p = tmp_path / "snap.msgpack"
@@ -46,8 +46,8 @@ def test_optimizer_state_roundtrip(tmp_path):
     must reproduce training dynamics instead of resetting the moments."""
     import jax
     from synthetic import make_orbit_dataset
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     ds = make_orbit_dataset(res=16)
     cfg = load_network_config("configs/nerf/base.json")

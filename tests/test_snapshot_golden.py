@@ -80,7 +80,7 @@ def _make_fixture(rng):
 
 
 def test_golden_bytes_import_and_export(tmp_path):
-    from ngp_tpu.io.snapshot import (export_reference_snapshot,
+    from ngp_jax.io.snapshot import (export_reference_snapshot,
                                      import_reference_snapshot)
 
     rng = np.random.default_rng(42)
@@ -168,7 +168,7 @@ import pytest
 def test_golden_bytes_encoded_primitives(tmp_path, prim, n_dims, n_out):
     """Hand-constructed tcnn buffers for the three encoded primitives
     decode exactly and re-export byte-for-byte (round-5 verdict #6)."""
-    from ngp_tpu.io.snapshot import (export_reference_snapshot_encoded,
+    from ngp_jax.io.snapshot import (export_reference_snapshot_encoded,
                                      import_reference_snapshot_encoded)
 
     rng = np.random.default_rng(hash(prim) % (1 << 31))

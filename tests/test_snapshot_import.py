@@ -8,8 +8,8 @@ import pytest
 
 
 def _fake_reference_snapshot(tmp_path, aabb_scale=1):
-    from ngp_tpu.config import autofill_hashgrid_config, load_network_config
-    from ngp_tpu.kernels.hashgrid import HashGridMeta
+    from ngp_jax.config import autofill_hashgrid_config, load_network_config
+    from ngp_jax.kernels.hashgrid import HashGridMeta
     cfg = load_network_config("configs/nerf/base.json")
     enc = autofill_hashgrid_config(cfg["encoding"], 3, 2048.0,
                                    aabb_scale=aabb_scale)
@@ -34,7 +34,7 @@ def _fake_reference_snapshot(tmp_path, aabb_scale=1):
 
 
 def test_import_reference_snapshot(tmp_path):
-    from ngp_tpu.io.snapshot import import_reference_snapshot
+    from ngp_jax.io.snapshot import import_reference_snapshot
     p, meta, params = _fake_reference_snapshot(tmp_path)
     cfg, pp, snap = import_reference_snapshot(p)
     assert pp["pos_encoding"].shape == (meta.n_params * 2,)
@@ -49,7 +49,7 @@ def test_import_reference_snapshot(tmp_path):
 
 def test_field_loader_accepts_reference_snapshot(tmp_path):
     import jax
-    from ngp_tpu.render.multi_nerf import NeuralRadianceField
+    from ngp_jax.render.multi_nerf import NeuralRadianceField
     p, _, _ = _fake_reference_snapshot(tmp_path)
     field = NeuralRadianceField(str(p))
     import jax.numpy as jnp
@@ -65,13 +65,13 @@ def test_export_import_round_trip(tmp_path):
     (ref schema: src/testbed.cu:3008-3106 + tcnn Trainer::serialize)."""
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.config import autofill_hashgrid_config, load_network_config
-    from ngp_tpu.io.snapshot import (export_reference_snapshot,
+    from ngp_jax.config import autofill_hashgrid_config, load_network_config
+    from ngp_jax.io.snapshot import (export_reference_snapshot,
                                      import_reference_snapshot)
-    from ngp_tpu.nn.models import NerfNetwork
+    from ngp_jax.nn.models import NerfNetwork
 
     cfg = load_network_config("configs/nerf/base.json")
-    os.environ["NGP_TPU_GRID_IMPL"] = "tcnn"
+    os.environ["NGP_GRID_IMPL"] = "tcnn"
     try:
         enc = autofill_hashgrid_config(dict(cfg["encoding"]), 3, 2048.0,
                                        aabb_scale=1)
@@ -104,4 +104,4 @@ def test_export_import_round_trip(tmp_path):
         np.testing.assert_allclose(np.asarray(r1), np.asarray(r2), atol=5e-2)
         np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), atol=5e-2)
     finally:
-        os.environ.pop("NGP_TPU_GRID_IMPL", None)
+        os.environ.pop("NGP_GRID_IMPL", None)

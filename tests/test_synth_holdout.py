@@ -28,9 +28,8 @@ def test_synth_scene_holdout_protocol(tmp_path):
     t = json.load(open(os.path.join(out, "transforms.json")))
     assert len(t["frames"]) == 6 and t["aabb_scale"] == 2
 
-    env = dict(os.environ, NGP_TPU_FORCE_CPU="1", JAX_PLATFORMS="cpu",
-               NGP_TPU_BATCH=str(1 << 12), NGP_TPU_MARCH_STEPS="128",
-               NGP_TPU_FIXED_RAYS="128")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", NGP_BATCH=str(1 << 12),
+               NGP_MARCH_STEPS="128", NGP_FIXED_RAYS="128")
     r = subprocess.run(
         [sys.executable, os.path.join(root, "scripts", "run.py"),
          "--scene", os.path.join(out, "transforms.json"),

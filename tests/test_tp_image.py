@@ -6,8 +6,8 @@ import pytest
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_tp_image_trains_and_shards_table():
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.tp_image import TpImageTrainer
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.tp_image import TpImageTrainer
 
     rng = np.random.default_rng(0)
     img = rng.random((64, 64, 3), np.float32)
@@ -35,7 +35,7 @@ def test_tp_image_trains_and_shards_table():
     assert l1 < l0, (l0, l1)
 
     # encode agrees with the single-device reference implementation
-    from ngp_tpu.kernels.blocked_grid import encode_reference
+    from ngp_jax.kernels.blocked_grid import encode_reference
     pos = rng.random((256, 2), np.float32)
     with mesh:
         tp_feat = np.asarray(tr.encode(tr.params["table"],

@@ -9,8 +9,8 @@ from synthetic import make_orbit_dataset
 
 
 def _make_trainer():
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
     ds = make_orbit_dataset(res=16)
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -24,9 +24,9 @@ def test_tp_step_matches_single_device():
     """TP(model=4) with one data shard must reproduce the single-device
     step: the row-sharded encode psum is the same sum over disjoint
     corner contributions (fp association aside)."""
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import null_error_state
-    from ngp_tpu.dist.tp_nerf import make_tp_nerf_train_step
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import null_error_state
+    from ngp_jax.dist.tp_nerf import make_tp_nerf_train_step
 
     tr_ref = _make_trainer()
     tr_tp = _make_trainer()
@@ -75,9 +75,9 @@ def test_dp_x_tp_step_runs_and_shards_table():
     """Full DPxTP (data=2 x model=4): the step runs, losses are finite,
     the table moves, and its rows are physically sharded 1/M per
     device."""
-    from ngp_tpu.dist.mesh import make_mesh
-    from ngp_tpu.dist.nerf_dp import null_error_state
-    from ngp_tpu.dist.tp_nerf import make_tp_nerf_train_step
+    from ngp_jax.dist.mesh import make_mesh
+    from ngp_jax.dist.nerf_dp import null_error_state
+    from ngp_jax.dist.tp_nerf import make_tp_nerf_train_step
 
     tr = _make_trainer()
     mesh = make_mesh(n_data=2, n_model=4)

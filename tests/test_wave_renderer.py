@@ -11,8 +11,8 @@ from synthetic import make_orbit_dataset
 
 def _setup(march_steps=256, res=16):
     import jax.numpy as jnp
-    from ngp_tpu.config import load_network_config
-    from ngp_tpu.train.nerf import NerfTrainer, NerfTrainerConfig
+    from ngp_jax.config import load_network_config
+    from ngp_jax.train.nerf import NerfTrainer, NerfTrainerConfig
 
     cfg = load_network_config("configs/nerf/base.json")
     cfg["encoding"]["n_levels"] = 4
@@ -29,8 +29,8 @@ def _setup(march_steps=256, res=16):
     ("SHADE", "bulk"), ("DEPTH", "bulk"), ("AO", "bulk"),
     ("SHADE", "exact")])
 def test_wave_matches_static(mode_name, sync):
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -53,7 +53,7 @@ def test_wave_counts_live_samples_only():
     """An empty bitfield ⇒ zero network evaluations (the static path
     would still pay every slot)."""
     import jax.numpy as jnp
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, _ = _setup()
     r = NerfRenderer.for_trainer(tr, RenderOptions(
@@ -69,9 +69,9 @@ def test_wave_counts_live_samples_only():
 def test_wave_spp_and_masks():
     """spp accumulation + Mask3D alpha modulation agree with the static
     path under snap-to-centers (deterministic rays)."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.multi_nerf import Mask3D
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.multi_nerf import Mask3D
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     xf = np.eye(4, dtype=np.float32)
@@ -101,8 +101,8 @@ def test_hier_march_matches_flat_on_sparse_grid():
     overflows (tiny wave_hier_frac headroom)."""
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, _ = _setup()
     dens = jnp.where(jax.random.uniform(jax.random.PRNGKey(0),
@@ -137,8 +137,8 @@ def test_fused_wave_matches_static_single_segment():
     per chunk) must match the static path with march_segments=1 at the
     equal whole-ray cap bit-for-bit — the fusion removes dispatches and
     bucket padding, not math."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -161,8 +161,8 @@ def test_fused_wave_matches_static_single_segment():
 def test_fused_wave_close_to_segmented():
     """Fused and segmented waves differ only in decimation granularity +
     early-out placement — images must agree closely on a normal scene."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -182,8 +182,8 @@ def test_wave2_matches_static():
     lax.switch bucket selection, zero host syncs) must match the static
     path at the equal whole-ray cap — same decimation + composite math,
     different dispatch/layout."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -209,8 +209,8 @@ def test_wave2_matches_static():
 def test_wave2_modes_match_fused_host(mode_name):
     """DEPTH/AO under device dispatch agree with the host fused wave
     (identical math, different dispatch)."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -231,10 +231,10 @@ def test_wave2_spp_masks_and_sparse_grid():
     bitfield matches the static path (deterministic snap-to-centers)."""
     import jax
     import jax.numpy as jnp
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.grid import occupancy as occ
-    from ngp_tpu.render.multi_nerf import Mask3D
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.grid import occupancy as occ
+    from ngp_jax.render.multi_nerf import Mask3D
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, _ = _setup()
     dens = jnp.where(jax.random.uniform(jax.random.PRNGKey(0),
@@ -265,8 +265,8 @@ def test_wave2_spp_masks_and_sparse_grid():
 def test_wave2_overflow_falls_back_to_static():
     """A segment-stream bound too small for a dense chunk must NOT
     silently under-render: the group is re-rendered on the static path."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -288,8 +288,8 @@ def test_wave2_decimates_to_fit_top_bucket():
     cap halves on device until the stream fits — the render stays finite
     and close to the uncapped image (denser decimation, same optical
     depth)."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -311,8 +311,8 @@ def test_wave2_flat_matches_static():
     """The flat device-dispatch program (stream = the (R, K) lattice;
     the fallback for scenes the coarse mask cannot cull) matches the
     static path at the equal whole-ray cap."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
@@ -333,8 +333,8 @@ def test_wave2_flat_matches_static():
 def test_wave2_overflow_reroutes_to_flat():
     """A hier-stream overflow must re-render on the FLAT device program
     (and stick to it), matching the static image."""
-    from ngp_tpu.common import RenderMode
-    from ngp_tpu.render.nerf_render import NerfRenderer, RenderOptions
+    from ngp_jax.common import RenderMode
+    from ngp_jax.render.nerf_render import NerfRenderer, RenderOptions
 
     tr, ds, bits = _setup()
     kw = dict(width=12, height=12, march_steps=256, chunk=64,
